@@ -15,9 +15,9 @@ import numpy as np
 def main():
     import jax
 
-    import graph_embed_tpu as gt
-    from graph_embed_tpu.harness.runtests import layout_stress
-    from graph_embed_tpu.viz import write_embedding_html
+    import graph_embed as gt
+    from graph_embed.harness.runtests import layout_stress
+    from graph_embed.viz import write_embedding_html
 
     out = sys.argv[1] if len(sys.argv) > 1 else "quickstart.html"
     rng = np.random.default_rng(0)

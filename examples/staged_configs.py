@@ -4,7 +4,7 @@
   python examples/staged_configs.py 2   # 50k-vertex mesh, hierarchy cf=1/8,
                                         # multilevel embed, 2D
   python examples/staged_configs.py 3   # ~1M-edge graph, sampled repulsion,
-                                        # 3D (tiled kernel on TPU)
+                                        # 3D (transposed-layout step)
   python examples/staged_configs.py 4   # synthetic LiveJournal-scale stand-in,
                                         # edge-sharded across all devices
 
@@ -24,7 +24,7 @@ import numpy as np
 def mesh2d(L):
     import jax.numpy as jnp
 
-    import graph_embed_tpu as gt
+    import graph_embed as gt
 
     n = L * L
     idx = np.arange(n)
@@ -41,7 +41,7 @@ def mesh2d(L):
 def powerlaw(n, e, seed=0):
     import jax.numpy as jnp
 
-    import graph_embed_tpu as gt
+    import graph_embed as gt
 
     rng = np.random.default_rng(seed)
     u = rng.random(e)
@@ -55,7 +55,7 @@ def powerlaw(n, e, seed=0):
 def config1():
     import jax
 
-    import graph_embed_tpu as gt
+    import graph_embed as gt
 
     g = powerlaw(1000, 4000, seed=1)
     t0 = time.time()
@@ -70,7 +70,7 @@ def config1():
 def config2(path=None):
     import jax
 
-    import graph_embed_tpu as gt
+    import graph_embed as gt
 
     g = gt.read_graph(path, "coolist", symmetric=True) if path else mesh2d(224)
     t0 = time.time()
@@ -92,19 +92,15 @@ def config2(path=None):
 def config3(path=None):
     import jax
 
-    import graph_embed_tpu as gt
-    from graph_embed_tpu.forceatlas import tiled as TL
+    import graph_embed as gt
+    from graph_embed.forceatlas import tiled as TL
 
     g = gt.read_graph(path, "coolist", symmetric=True) if path else powerlaw(
         200_000, 1_000_000, seed=3)
     params = gt.ForceAtlasParams(repulsion="sampled", num_negative_samples=64)
     t0 = time.time()
-    try:
-        coords = TL.force_atlas_tiled(g, 3, params=params, iterations=200,
-                                      key=jax.random.PRNGKey(0))
-    except Exception:
-        coords = gt.force_atlas(g, 3, params=params, iterations=200,
-                                key=jax.random.PRNGKey(0))
+    coords = TL.force_atlas_tiled(g, 3, params=params, iterations=200,
+                                  key=jax.random.PRNGKey(0))
     jax.block_until_ready(coords)
     return {"config": 3, "n": g.n, "edges": g.num_edges,
             "seconds": time.time() - t0,
@@ -114,11 +110,11 @@ def config3(path=None):
 def config4(path=None):
     import jax
 
-    import graph_embed_tpu as gt
-    from graph_embed_tpu.parallel import make_mesh, sharded_force_atlas
+    import graph_embed as gt
+    from graph_embed.parallel import make_mesh, sharded_force_atlas
 
     # com-LiveJournal stand-in: 4M vertices / ~35M stored entries scaled to
-    # fit the available chips' HBM; pass a real edge list to override
+    # fit the available devices' memory; pass a real edge list to override
     g = gt.read_graph(path, "coolist", symmetric=True) if path else powerlaw(
         1_000_000, 8_000_000, seed=4)
     mesh = make_mesh()

@@ -7,7 +7,7 @@ pipeline, examples/embedder.cpp:291-293):
     python scripts/plot-graph.py -graph mat.temp -part part.temp \
         -coords coords.temp -o plot.html
 
-Writes a self-contained interactive HTML viewer (graph_embed_tpu.viz) with
+Writes a self-contained interactive HTML viewer (graph_embed.viz) with
 the reference's hierarchical coarse-color + jitter scheme instead of the
 legacy plotly-2 output.
 """
@@ -18,7 +18,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from graph_embed_tpu.viz import plot_graph_html  # noqa: E402
+from graph_embed.viz import plot_graph_html  # noqa: E402
 
 
 def main():

@@ -37,8 +37,8 @@ def main():
     import numpy as np
     import jax.numpy as jnp
 
-    import graph_embed_tpu as gt
-    from graph_embed_tpu.parallel.multihost import global_mesh
+    import graph_embed as gt
+    from graph_embed.parallel.multihost import global_mesh
 
     # deterministic graph: ring of cliques (same on every process)
     rng = np.random.default_rng(11)

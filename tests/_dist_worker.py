@@ -38,12 +38,12 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    import graph_embed_tpu as gt
-    from graph_embed_tpu.parallel.multihost import (global_mesh,
+    import graph_embed as gt
+    from graph_embed.parallel.multihost import (global_mesh,
                                                     shard_edges_global)
-    from graph_embed_tpu.parallel.sharded import (make_sharded_fa_step,
+    from graph_embed.parallel.sharded import (make_sharded_fa_step,
                                                   pad_graph_for_mesh)
-    from graph_embed_tpu.utils.params import ForceAtlasParams
+    from graph_embed.utils.params import ForceAtlasParams
 
     rng = np.random.default_rng(7)
     n, m = 96, 400

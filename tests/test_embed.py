@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.forceatlas import multilevel as ml
-from graph_embed_tpu.embed import radii as R
-from graph_embed_tpu.utils.params import MultilevelFAParams
+import graph_embed as gt
+from graph_embed.forceatlas import multilevel as ml
+from graph_embed.embed import radii as R
+from graph_embed.utils.params import MultilevelFAParams
 
 from conftest import random_graph
 import oracle
@@ -205,7 +205,7 @@ def test_embed_via_custom_block(rng):
 def test_ml_full_iteration_and_epilogue_match_oracle(rng):
     """One complete refinement iteration + epilogue vs the loop transcription
     (swing clamp, speed schedule, ball packing)."""
-    from graph_embed_tpu.forceatlas.multilevel import _ml_loop
+    from graph_embed.forceatlas.multilevel import _ml_loop
 
     g, part, v2a, coords, coords_A = _setup_level(rng, n=36, m=5, d=2)
     r_A = rng.uniform(0.5, 1.2, size=5)
@@ -229,7 +229,7 @@ def test_ml_full_iteration_and_epilogue_match_oracle(rng):
 def test_minimization_matches_oracle(rng):
     """Coordinate-descent embedder vs the literal transcription of
     src/embed.cpp:341-559 (same warm start, 2 sweeps)."""
-    from graph_embed_tpu.embed.minimization import embed_via_minimization
+    from graph_embed.embed.minimization import embed_via_minimization
     import oracle_min
 
     g = random_graph(rng, 12, avg_deg=3)
@@ -292,7 +292,7 @@ def test_embed_via_minimization_block(rng):
 def test_embed_warm_start(rng):
     """coords0 warm-starts every level (base FA + local refinement frames);
     output stays finite and the projection chain has the right shapes."""
-    from graph_embed_tpu.embed.driver import project_to_levels, embed
+    from graph_embed.embed.driver import project_to_levels, embed
 
     g = random_graph(rng, 250, avg_deg=6)
     res = gt.partition_hierarchy(g, 0.2)
@@ -325,7 +325,7 @@ def test_radii_disconnected_fallbacks(rng):
     """Aggregates untouched by any sweep candidate (mutually disconnected
     components) get half-nearest-center radii instead of the reference's 0
     (which collapses their children onto one point)."""
-    from graph_embed_tpu.embed.radii import radii_top_level, radii_inner
+    from graph_embed.embed.radii import radii_top_level, radii_inner
 
     # top level: no coarse edges at all
     c = rng.uniform(-1, 1, size=(600, 3))
@@ -355,7 +355,7 @@ def test_radii_disconnected_fallbacks(rng):
 def test_host_sweep_matches_device(rng):
     """The heap host sweep (large-pair-count path) is semantically identical
     to the device fori sweep, including tie-breaks and gap updates."""
-    from graph_embed_tpu.embed.radii import _sweep_host, _sweep_one_jit
+    from graph_embed.embed.radii import _sweep_host, _sweep_one_jit
 
     S = 40
     c = rng.uniform(-1, 1, size=(S, 3))
@@ -381,7 +381,7 @@ def test_host_sweep_matches_device(rng):
 def test_radii_inner_host_sweep_bucket(rng, monkeypatch):
     """A grandparent over the host-sweep pair threshold produces the same
     radii as the device bucket path."""
-    from graph_embed_tpu.embed import radii as RD
+    from graph_embed.embed import radii as RD
 
     n, mc = 120, 4
     gp = gt.Partition(jnp.asarray((np.arange(n) % mc).astype(np.int32)), mc)
@@ -404,8 +404,8 @@ def test_radii_inner_native_matches_bucketed(rng):
     """radii_inner backend='auto' (one batched native sweep over all
     grandparents) is BITWISE the bucketed device/host path, f64 and f32,
     including singleton inheritance and untouched-children fallbacks."""
-    from graph_embed_tpu.embed import radii as RD
-    from graph_embed_tpu.native import sweep_lib
+    from graph_embed.embed import radii as RD
+    from graph_embed.native import sweep_lib
 
     if not sweep_lib.available():
         import pytest
@@ -437,8 +437,8 @@ def test_native_sweep_matches_python(rng):
     (tau, then pair index), same 2*tau - tpop gap updates in the candidate
     dtype -- for f64 and f32, with and without exact duplicate taus, and
     with repeated (i, j) pairs."""
-    from graph_embed_tpu.embed.radii import _sweep_host
-    from graph_embed_tpu.native import sweep_lib
+    from graph_embed.embed.radii import _sweep_host
+    from graph_embed.native import sweep_lib
 
     if not sweep_lib.available():
         import pytest
@@ -462,11 +462,11 @@ def test_native_sweep_matches_python(rng):
 
 def test_default_base_iterations_policy():
     """embed()'s base_iterations=None resolves to the size-aware default
-    (round-3 VERDICT item 5): min(params.iterations, max(10k, 12n)) --
+    min(params.iterations, max(10k, 12n)) --
     floor for tiny coarsest levels, the n=1630-justified 12/vertex slope,
     never above the reference's own 100k default."""
-    from graph_embed_tpu.embed.driver import default_base_iterations
-    from graph_embed_tpu.utils.params import ForceAtlasParams
+    from graph_embed.embed.driver import default_base_iterations
+    from graph_embed.utils.params import ForceAtlasParams
 
     p = ForceAtlasParams()
     assert default_base_iterations(100, p) == 10_000

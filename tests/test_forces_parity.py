@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.forceatlas import forces as F
-from graph_embed_tpu.forceatlas.flat import compute_forces, fa_step
+import graph_embed as gt
+from graph_embed.forceatlas import forces as F
+from graph_embed.forceatlas.flat import compute_forces, fa_step
 
 from conftest import random_graph
 import oracle
@@ -130,38 +130,23 @@ def test_force_atlas_deterministic(rng):
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_flat_device_routing(rng, monkeypatch):
-    """Off-CPU, the cost model routes to the host CPU only once this
-    process has already paid the (uncacheable-here) XLA:CPU compile; on the
-    CPU backend routing is a no-op, and device="cpu" produces the identical
-    layout to the default path."""
-    from graph_embed_tpu.forceatlas import flat
-
-    assert flat._flat_device(56, 100_000) is None  # cpu backend -> no-op
-    monkeypatch.setattr(flat.jax, "default_backend", lambda: "tpu")
-    # fresh process: the ~80 s per-process CPU compile dominates
-    assert flat._flat_device(56, 100_000) is None
-    flat._CPU_COMPILED.add((56, 100_000))
-    try:
-        dev = flat._flat_device(56, 100_000)
-        assert dev is not None and dev.platform == "cpu"
-    finally:
-        flat._CPU_COMPILED.discard((56, 100_000))
-    # big-n long runs stay on the accelerator regardless
-    flat._CPU_COMPILED.add((5000, 100_000))
-    try:
-        assert flat._flat_device(5000, 100_000) is None
-    finally:
-        flat._CPU_COMPILED.discard((5000, 100_000))
-    monkeypatch.undo()
-
+@pytest.mark.parametrize("repulsion", ["exact", "sampled", "centroids"])
+def test_force_atlas_device_cpu_matches_default(rng, repulsion):
+    """device="cpu" runs the loop on the host backend: same math, same
+    threefry draws, so the layout equals the default-backend one."""
     g = random_graph(rng, 24)
-    params = gt.ForceAtlasParams(repulsion="exact")
+    params = gt.ForceAtlasParams(repulsion=repulsion, num_negative_samples=8)
     a = gt.force_atlas(g, 2, params=params, iterations=15,
                        key=jax.random.PRNGKey(3))
     b = gt.force_atlas(g, 2, params=params, iterations=15,
                        key=jax.random.PRNGKey(3), device="cpu")
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_force_atlas_rejects_unknown_device(rng):
+    g = random_graph(rng, 12)
+    with pytest.raises(ValueError, match="device"):
+        gt.force_atlas(g, 2, iterations=1, device="auto")
 
 
 def test_warm_start_respected(rng):
@@ -181,7 +166,7 @@ def test_normalize(rng):
 def test_centroid_repulsion_accuracy(rng):
     """Far-field monopole + exact near field approximates the exact sum well
     on spatially coherent groups (the Barnes-Hut-style mode)."""
-    from graph_embed_tpu.forceatlas.farfield import centroid_repulsion
+    from graph_embed.forceatlas.farfield import centroid_repulsion
 
     # 8 well-separated blobs of 32 points
     k, per = 8, 32

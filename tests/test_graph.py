@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
+import graph_embed as gt
 from conftest import random_graph
 
 
@@ -132,7 +132,7 @@ def test_write_coords_partition(tmp_path):
 
 
 def test_algebra_surface(rng):
-    from graph_embed_tpu.graph import algebra
+    from graph_embed.graph import algebra
 
     g = random_graph(rng, 20)
     A = g.to_dense_numpy()
@@ -165,7 +165,7 @@ def test_edge_cases_small_graphs():
 
 
 def test_synth_families():
-    from graph_embed_tpu.graph import synth
+    from graph_embed.graph import synth
 
     g = synth.mesh3d(5)
     assert g.n == 125 and g.num_edges == 2 * 300  # 3*L^2*(L-1) grid edges
@@ -211,9 +211,8 @@ def test_synth_families():
 
 def test_synth_cached_bit_identical(tmp_path):
     """synth.cached loads the canonical COO via from_canonical_coo --
-    graph must be bit-identical to a fresh generation (round-4 VERDICT
-    item 3: generation caching for the prep wall)."""
-    from graph_embed_tpu.graph import synth
+    graph must be bit-identical to a fresh generation."""
+    from graph_embed.graph import synth
 
     g1 = synth.cached("rmat", 10, 8, seed=3, cache_dir=str(tmp_path))
     g2 = synth.cached("rmat", 10, 8, seed=3, cache_dir=str(tmp_path))

@@ -1,16 +1,16 @@
 """Boundary-aware (halo-exchange) sharding prototype tests -- SURVEY.md
-SS2.2 row 3 / SS5 long-context row; round-1 VERDICT gap #2."""
+SS2.2 row 3 / SS5 long-context row."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.forceatlas.flat import fa_step
-from graph_embed_tpu.parallel.mesh import make_mesh
-from graph_embed_tpu.parallel.halo import build_halo_plan, halo_force_atlas
-from graph_embed_tpu.utils.params import ForceAtlasParams
+import graph_embed as gt
+from graph_embed.forceatlas.flat import fa_step
+from graph_embed.parallel.mesh import make_mesh
+from graph_embed.parallel.halo import build_halo_plan, halo_force_atlas
+from graph_embed.utils.params import ForceAtlasParams
 
 from conftest import random_graph
 
@@ -49,90 +49,6 @@ def test_halo_attraction_matches_dense(rng):
                                    atol=1e-12)
 
 
-def test_halo_tiled_attraction_matches_segment(rng):
-    """HaloTiles windowed-SpMV attraction == the portable segment path
-    (round-3 VERDICT item 2: halo.py's per-edge gather + segment_sum was
-    the ~18ns/row cost the framework's kernels exist to avoid).  repel=0
-    isolates attraction+gravity; both packings are exercised (unit weights
-    -> jumbo unit tiles, weighted -> bf16 256/256)."""
-    for weighted in (False, True):
-        g = random_graph(rng, 600, avg_deg=6, weighted=weighted)
-        c0 = rng.uniform(-1, 1, size=(g.n, 3))
-        params = ForceAtlasParams(repulsion="sampled",
-                                  num_negative_samples=8, repel=0.0)
-        for ndev in (1, 8):
-            mesh = make_mesh(ndev)
-            kw = dict(mesh=mesh, params=params, iterations=2, coords0=c0,
-                      key=jax.random.PRNGKey(0))
-            a = np.asarray(halo_force_atlas(g, 3, tiled=False, **kw))
-            b = np.asarray(halo_force_atlas(g, 3, tiled=True,
-                                            interpret=True, **kw))
-            # bf16-scatter-join accuracy (the established kernel-family
-            # level, see test_edge_spmm tolerances)
-            np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-3)
-
-
-def test_halo_tiled_full_step_sampled(rng):
-    """Full halo step (sampled repulsion ON) through the tiled attraction:
-    finite and close to the segment path; bad knob combinations raise."""
-    from graph_embed_tpu.parallel.halo import build_halo_tiles
-
-    g = random_graph(rng, 500, avg_deg=5, weighted=False)
-    c0 = rng.uniform(-1, 1, size=(g.n, 2))
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=32)
-    mesh = make_mesh(4)
-    kw = dict(mesh=mesh, params=params, iterations=3, coords0=c0,
-              key=jax.random.PRNGKey(2))
-    a = np.asarray(halo_force_atlas(g, 2, tiled=False, **kw))
-    b = np.asarray(halo_force_atlas(g, 2, tiled=True, interpret=True, **kw))
-    assert np.isfinite(b).all()
-    np.testing.assert_allclose(a, b, rtol=2e-3, atol=1e-3)
-    plan = build_halo_plan(g, 4)
-    import dataclasses
-
-    from graph_embed_tpu.parallel.halo import HaloEdgeTiles
-    # linlog dispatches to the per-edge tile family instead of raising
-    # (round-4 VERDICT item 6); parity is pinned by
-    # test_halo_tiled_linlog_matches_segment
-    t = build_halo_tiles(plan, dataclasses.replace(params, linlog=True))
-    assert isinstance(t, HaloEdgeTiles)
-
-
-def test_halo_tiled_linlog_matches_segment(rng):
-    """linlog on the halo fast path (round-4 VERDICT item 6): per-edge v1
-    tiles (HaloEdgeTiles) replace the former ValueError; must reproduce
-    the portable segment path, which computes linlog per edge already."""
-    g = random_graph(rng, 500, avg_deg=6, weighted=True)
-    c0 = rng.uniform(-1, 1, size=(g.n, 3))
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=8,
-                              repel=0.0, linlog=True)
-    for ndev in (1, 4):
-        mesh = make_mesh(ndev)
-        kw = dict(mesh=mesh, params=params, iterations=2, coords0=c0,
-                  key=jax.random.PRNGKey(0))
-        a = np.asarray(halo_force_atlas(g, 3, tiled=False, **kw))
-        b = np.asarray(halo_force_atlas(g, 3, tiled=True, interpret=True,
-                                        **kw))
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
-
-
-def test_overlap_tiled_linlog_matches_collective(rng):
-    """The full composition under linlog: local per-edge tiles + ring
-    kernel (whose attraction_fa handles linlog in-kernel)."""
-    g = random_graph(rng, 4 * 50, avg_deg=6, dtype="float32")
-    c0 = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=8,
-                              linlog=True)
-    mesh = make_mesh(4)
-    plan = build_halo_plan(g, 4, boundary_multiple=128)
-    kw = dict(mesh=mesh, params=params, iterations=2, coords0=c0,
-              key=jax.random.PRNGKey(5), plan=plan)
-    a = np.asarray(halo_force_atlas(g, 3, tiled=False, **kw))
-    b = np.asarray(halo_force_atlas(g, 3, overlap=True, tiled=True,
-                                    interpret=True, **kw))
-    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
-
-
 def test_halo_sampled_runs_and_deterministic(rng):
     g = random_graph(rng, 160, avg_deg=5)
     c0 = rng.uniform(-1, 1, size=(g.n, 2))
@@ -158,7 +74,7 @@ def test_halo_rejects_dense_repulsion(rng):
 def test_halo_comm_model_smaller_than_replicated():
     """On a locality-ordered mesh graph the boundary exchange moves several
     times fewer floats per step than replicating coordinates."""
-    from graph_embed_tpu.graph.synth import mesh3d
+    from graph_embed.graph.synth import mesh3d
 
     g = mesh3d(24)
     p = build_halo_plan(g, 8)
@@ -168,155 +84,17 @@ def test_halo_comm_model_smaller_than_replicated():
     assert p.boundary_fraction < 0.6
 
 
-# ---- ring-overlap kernel (parallel/overlap.py) ----------------------------
-
-def test_overlap_groups_partition_cross_edges(rng):
-    from graph_embed_tpu.parallel.overlap import build_overlap_groups
-
-    g = random_graph(rng, 4 * 40, avg_deg=6)
-    plan = build_halo_plan(g, 4, boundary_multiple=128)
-    groups = build_overlap_groups(plan)
-    n_cross = int((plan.recv_idx >= plan.blk).sum())
-    # every cross edge lands in exactly one live group slot
-    assert int(groups.mask.sum()) == n_cross
-    # slot 0 (own block) is empty by construction
-    assert groups.mask[:, 0].sum() == 0
-    # the deadened local split holds exactly the non-cross edges
-    assert int((groups.local_senders < plan.blk).sum()) == \
-        g.num_edges - n_cross
-    # live group receivers stay inside the source boundary block
-    assert (groups.cr[groups.mask > 0] < plan.B_max).all()
-
-
-@pytest.mark.parametrize("ndev", [1, 4, 8])
-def test_overlap_matches_collective(rng, ndev):
-    """The ring kernel (interpret-mode inter-chip DMAs on the virtual mesh)
-    must reproduce the all_gather halo step."""
-    g = random_graph(rng, 8 * 31, avg_deg=6, dtype="float32")
-    c0 = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16)
-    mesh = make_mesh(ndev)
-    plan = build_halo_plan(g, ndev, boundary_multiple=128)
-    kw = dict(mesh=mesh, params=params, iterations=3, coords0=c0,
-              key=jax.random.PRNGKey(7), plan=plan)
-    a = np.asarray(halo_force_atlas(g, 3, **kw))
-    b = np.asarray(halo_force_atlas(g, 3, overlap=True, interpret=True,
-                                    **kw))
-    assert np.isfinite(b).all()
-    np.testing.assert_allclose(b, a, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.parametrize("ndev", [1, 4, 8])
-def test_overlap_tiled_matches_collective(rng, ndev):
-    """Overlap ring COMPOSED with windowed local attraction (round-4
-    VERDICT item 2: SURVEY SS5's 'exchange overlapped with kernel-grade
-    local aggregation' -- previously mutually exclusive code paths).
-    Local-only WindowTiles run while boundary blocks ride the ring; must
-    reproduce the collective untiled step at every device count."""
-    g = random_graph(rng, 8 * 50, avg_deg=6, dtype="float32")
-    c0 = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16)
-    mesh = make_mesh(ndev)
-    plan = build_halo_plan(g, ndev, boundary_multiple=128)
-    kw = dict(mesh=mesh, params=params, iterations=3, coords0=c0,
-              key=jax.random.PRNGKey(7), plan=plan)
-    a = np.asarray(halo_force_atlas(g, 3, tiled=False, **kw))
-    b = np.asarray(halo_force_atlas(g, 3, overlap=True, tiled=True,
-                                    interpret=True, **kw))
-    assert np.isfinite(b).all()
-    # tiled local attraction carries the bf16-scatter-join kernel tolerance
-    np.testing.assert_allclose(b, a, rtol=2e-3, atol=2e-3)
-
-
-def test_overlap_tiled_weighted_matches_collective(rng):
-    """Same composition through the weighted (bf16 256^2) tile packing."""
-    g = random_graph(rng, 4 * 60, avg_deg=6, weighted=True, dtype="float32")
-    c0 = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=8)
-    mesh = make_mesh(4)
-    plan = build_halo_plan(g, 4, boundary_multiple=128)
-    kw = dict(mesh=mesh, params=params, iterations=2, coords0=c0,
-              key=jax.random.PRNGKey(3), plan=plan)
-    a = np.asarray(halo_force_atlas(g, 3, tiled=False, **kw))
-    b = np.asarray(halo_force_atlas(g, 3, overlap=True, tiled=True,
-                                    interpret=True, **kw))
-    np.testing.assert_allclose(b, a, rtol=2e-3, atol=2e-3)
-
-
-def test_overlap_hbm_staged_matches_vmem(rng, monkeypatch):
-    """Past the VMEM budget the ring stages blocks in HBM with double-
-    buffered chunk copies (round-3 VERDICT weak #2: power-law cuts at scale
-    blow the 8 MiB VMEM scratch, which previously raised).  Force the mode
-    with a tiny budget; results must match the VMEM-resident kernel and
-    the collective path."""
-    from graph_embed_tpu.parallel import overlap as OV
-
-    g = random_graph(rng, 4 * 96, avg_deg=8, dtype="float32")
-    c0 = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16)
-    mesh = make_mesh(4)
-    plan = build_halo_plan(g, 4, boundary_multiple=1024)
-    kw = dict(mesh=mesh, params=params, iterations=2, coords0=c0,
-              key=jax.random.PRNGKey(9), plan=plan)
-    a = np.asarray(halo_force_atlas(g, 3, **kw))
-    b = np.asarray(halo_force_atlas(g, 3, overlap=True, interpret=True,
-                                    **kw))                    # VMEM mode
-    monkeypatch.setattr(OV, "RING_VMEM_BUDGET_BYTES", 1)
-    c = np.asarray(halo_force_atlas(g, 3, overlap=True, interpret=True,
-                                    **kw))                    # HBM mode
-    assert np.isfinite(c).all()
-    np.testing.assert_allclose(c, b, rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(c, a, rtol=2e-5, atol=2e-6)
-    # unaligned B_max in HBM mode raises with the fix instruction
-    plan128 = build_halo_plan(g, 4, boundary_multiple=128)
-    if plan128.B_max % 1024 != 0:
-        with pytest.raises(ValueError, match="boundary_multiple"):
-            halo_force_atlas(g, 3, overlap=True, interpret=True,
-                             mesh=mesh, params=params, iterations=1,
-                             coords0=c0, key=jax.random.PRNGKey(9),
-                             plan=plan128)
-
-
-def test_overlap_attraction_matches_dense(rng):
-    """repel=0: ring-kernel cross attraction + local attraction must equal
-    the single-device dense step (same invariant as the collective halo)."""
-    g = random_graph(rng, 192, avg_deg=5, dtype="float32")
-    c0 = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    want, _ = fa_step(jnp.asarray(c0), jnp.zeros((g.n, 3), jnp.float32), g,
-                      g.degrees(True),
-                      ForceAtlasParams(repulsion="gram", repel=0.0))
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=8,
-                              repel=0.0)
-    out = np.asarray(halo_force_atlas(
-        g, 3, mesh=make_mesh(4), params=params, iterations=1, coords0=c0,
-        key=jax.random.PRNGKey(0), overlap=True, interpret=True))
-    np.testing.assert_allclose(out, np.asarray(want), rtol=5e-5, atol=1e-6)
-
-
-def test_overlap_groups_reject_unaligned_boundary(rng):
-    import dataclasses
-
-    from graph_embed_tpu.parallel.overlap import build_overlap_groups
-
-    g = random_graph(rng, 4 * 40, avg_deg=6)
-    plan = build_halo_plan(g, 4)     # boundary rounded to 8, not 128
-    if plan.B_max % 128 == 0:        # force misalignment so the ValueError
-        plan = dataclasses.replace(plan, B_max=plan.B_max + 8)
-    with pytest.raises(ValueError):  # branch is exercised every run
-        build_overlap_groups(plan)
-
-
 def test_halo_sampled_estimator_unbiased_uneven_blocks(rng):
     """The stratified repulsion estimator must stay unbiased when device
     blocks are uneven (n=20 on 4 devices -> blocks 8/8/4/0: a short stratum
-    AND an empty one) and num_negative_samples is small -- the round-2
-    uniform n/(samp*ndev) weighting was ~40% off here (VERDICT weak #7).
+    AND an empty one) and num_negative_samples is small -- a uniform
+    n/(samp*ndev) weighting is ~40% off here.
     Checked statistically: mean over keys of the repel-only halo force must
     approach the exact all-pairs repulsion."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from graph_embed_tpu.parallel.halo import make_halo_fa_step
-    from graph_embed_tpu.parallel.mesh import EDGE_AXIS
+    from graph_embed.parallel.halo import make_halo_fa_step
+    from graph_embed.parallel.mesh import EDGE_AXIS
 
     n, ndev, dim = 20, 4, 2
     g = random_graph(rng, n, avg_deg=2)
@@ -361,8 +139,8 @@ def test_embed_halo_base_matches_across_device_counts(rng):
     """embed(mesh=..., sharding='halo') must be IDENTICAL across device
     counts WITH repulsion on: attraction is exact through the boundary
     pool and the base case uses invariant sampling (shared global draws),
-    so the whole halo base is device-count invariant -- the round-2
-    VERDICT gap-3 contract.  The flat-only hierarchy (k=0) isolates it."""
+    so the whole halo base is device-count invariant.  The flat-only
+    hierarchy (k=0) isolates it."""
     g = random_graph(rng, 400, avg_deg=5)
     params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16)
     outs = {}
@@ -401,7 +179,7 @@ def test_embed_halo_base_order_kwarg(rng):
     caller gets the ordering for free from its dropped levels,
     embedder.cpp:189-200 startLevel pattern); a wrong-length order
     raises."""
-    from graph_embed_tpu.graph.reorder import partition_order
+    from graph_embed.graph.reorder import partition_order
 
     g = random_graph(rng, 300, avg_deg=5)
     kw = dict(key=jax.random.PRNGKey(9), base_iterations=4,
@@ -442,8 +220,8 @@ def test_halo_invariant_estimator_unbiased(rng):
     exact all-pairs repulsion."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from graph_embed_tpu.parallel.halo import make_halo_fa_step
-    from graph_embed_tpu.parallel.mesh import EDGE_AXIS
+    from graph_embed.parallel.halo import make_halo_fa_step
+    from graph_embed.parallel.mesh import EDGE_AXIS
 
     n, ndev, dim = 20, 4, 2
     g = random_graph(rng, n, avg_deg=2)

@@ -1,18 +1,17 @@
 """Differential tests: native pack.cpp backend vs the numpy reference paths.
 
-The native radix-sort backends must be BIT-identical to the numpy
-implementations they replace (graph.csr._finish_coo sum-duplicates and
-ops.pallas.edge_spmm.build_window_tiles), including float summation order.
+The native radix-sort backend must be BIT-identical to the numpy
+implementation it replaces (graph.csr._finish_coo sum-duplicates),
+including float summation order.
 """
 
 import numpy as np
 import pytest
 
-import graph_embed_tpu.graph.csr as csr
-from graph_embed_tpu.graph import from_coo
-from graph_embed_tpu.ops.pallas import edge_spmm
+import graph_embed.graph.csr as csr
+from graph_embed.graph import from_coo
 
-pack_lib = pytest.importorskip("graph_embed_tpu.native.pack_lib")
+pack_lib = pytest.importorskip("graph_embed.native.pack_lib")
 
 try:
     pack_lib._lib()
@@ -87,102 +86,3 @@ def test_from_coo_native_matches_numpy(monkeypatch):
                                   np.asarray(g_np.indptr))
     np.testing.assert_array_equal(np.asarray(g_nat.weights),
                                   np.asarray(g_np.weights))
-
-
-def _compare_tiles(a: edge_spmm.WindowTiles, b: edge_spmm.WindowTiles):
-    np.testing.assert_array_equal(np.asarray(a.sbf), np.asarray(b.sbf))
-    np.testing.assert_array_equal(np.asarray(a.rw), np.asarray(b.rw))
-    np.testing.assert_array_equal(np.asarray(a.packed), np.asarray(b.packed))
-    assert a.n_sblocks == b.n_sblocks and a.tile == b.tile
-    assert a.fill == pytest.approx(b.fill)
-    assert a.num_overflow == b.num_overflow == 0
-
-
-@pytest.mark.parametrize("packing", ["bf16", "unit"])
-@pytest.mark.parametrize("seed", [0, 3])
-def test_pack_tiles_bitwise(packing, seed):
-    """Direct native-vs-numpy comparison below the dispatch threshold
-    (numpy runs), calling the native packer explicitly. Vertex ids are
-    clustered to leave edgeless sender blocks (dummy-slab path) and group
-    sizes exceed the tile so pairs split into multiple slabs."""
-    rng = np.random.default_rng(seed)
-    n = 2000  # 8 sender blocks of 256; ids only in [0,500)+[1500,2000)
-    lo = rng.integers(0, 500, size=3000)
-    hi = rng.integers(1500, 2000, size=3000)
-    s = np.concatenate([lo, hi[:1500], lo[:1500]])
-    r = np.concatenate([hi, lo[:1500], lo[1500:]])
-    # unique pairs: unit packing requires every (deduped) weight == 1.0
-    key = np.unique(s.astype(np.int64) * n + r)
-    s, r = key // n, key % n
-    if packing == "unit":
-        w = None
-    else:
-        w = rng.uniform(0.25, 4.0, size=s.size)
-    g = from_coo(s, r, w, n=n, sum_duplicates=True)
-    tiles_np = edge_spmm.build_window_tiles(g, tile=64, packing=packing)
-    assert g.num_edges < (1 << 16)  # numpy ran above
-
-    s2, r2, w2 = g.to_coo_numpy()
-    sbf, rw, packed, _ = pack_lib.pack_tiles(
-        s2, r2, None if packing == "unit" else w2, g.n,
-        sender_block=edge_spmm.SENDER_BLOCK, window=edge_spmm.WINDOW,
-        tile=64)
-    np.testing.assert_array_equal(sbf, np.asarray(tiles_np.sbf))
-    np.testing.assert_array_equal(rw, np.asarray(tiles_np.rw))
-    np.testing.assert_array_equal(packed.reshape(tiles_np.packed.shape),
-                                  np.asarray(tiles_np.packed))
-
-
-def test_pack_tiles_masked_bf16():
-    """edge_mask zeroes weights in the bf16 layout (edges stay packed)."""
-    rng = np.random.default_rng(11)
-    n = 600
-    s = rng.integers(0, n, size=5000)
-    r = rng.integers(0, n, size=5000)
-    w = rng.uniform(0.5, 2.0, size=5000)
-    g = from_coo(s, r, w, n=n)
-    mask = (np.asarray(g._host_coo[0]) % 3) != 0
-    tiles_np = edge_spmm.build_window_tiles(g, tile=128, edge_mask=mask)
-    s2, r2, w2 = g.to_coo_numpy()
-    # masked (zero-weight) edges are dropped before tiling
-    s2, r2, w2 = s2[mask], r2[mask], w2[mask]
-    sbf, rw, packed, _ = pack_lib.pack_tiles(
-        s2, r2, w2, g.n, sender_block=edge_spmm.SENDER_BLOCK,
-        window=edge_spmm.WINDOW, tile=128)
-    np.testing.assert_array_equal(packed.reshape(tiles_np.packed.shape),
-                                  np.asarray(tiles_np.packed))
-    np.testing.assert_array_equal(sbf, np.asarray(tiles_np.sbf))
-    np.testing.assert_array_equal(rw, np.asarray(tiles_np.rw))
-
-
-def test_build_window_tiles_dispatch_equivalence(monkeypatch):
-    """>64k edges: build_window_tiles dispatches native; equals numpy-forced
-    (native gate disabled by raising the unreachable min_pair_edges check)."""
-    rng = np.random.default_rng(5)
-    n = 4000
-    m = 90_000
-    s = rng.integers(0, n, size=m)
-    r = rng.integers(0, n, size=m)
-    w = rng.uniform(0.5, 2.0, size=m)
-    g = from_coo(s, r, w, n=n)
-    assert g.num_edges >= (1 << 16)
-    t_nat = edge_spmm.build_window_tiles(g, tile=256)
-    # numpy-forced: make the native import fail inside the function
-    import graph_embed_tpu.native.pack_lib as pl_mod
-
-    def boom(*a, **k):
-        raise OSError("forced numpy")
-
-    monkeypatch.setattr(pl_mod, "pack_tiles", boom)
-    t_np = edge_spmm.build_window_tiles(g, tile=256)
-    _compare_tiles(t_nat, t_np)
-
-    # unit packing (unit-weight graph, unique pairs) through the same dispatch
-    key = np.unique(s.astype(np.int64) * n + r)
-    g1 = from_coo(key // n, key % n, None, n=n, sum_duplicates=True)
-    assert g1.num_edges >= (1 << 16)
-    monkeypatch.undo()
-    t_nat = edge_spmm.build_window_tiles(g1, tile=256, packing="unit")
-    monkeypatch.setattr(pl_mod, "pack_tiles", boom)
-    t_np = edge_spmm.build_window_tiles(g1, tile=256, packing="unit")
-    _compare_tiles(t_nat, t_np)

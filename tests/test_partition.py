@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.partition.coarsen import init_state, coarsen_round
-from graph_embed_tpu.utils.params import PartitionParams
+import graph_embed as gt
+from graph_embed.partition.coarsen import init_state, coarsen_round
+from graph_embed.utils.params import PartitionParams
 
 from conftest import random_graph
 import oracle
@@ -123,7 +123,7 @@ def test_running_q_matches_final_modularity(rng):
         m -= int(merged)
         if int(merged) == 0:
             break
-    from graph_embed_tpu.partition.coarsen import resolve_labels
+    from graph_embed.partition.coarsen import resolve_labels
     labels = np.asarray(resolve_labels(state.label))
     part = gt.partition_from_labels(labels)
     q_direct = oracle.modularity(g, np.asarray(part.vertex_to_agg))
@@ -176,7 +176,7 @@ def test_hierarchy_galerkin_chain(rng):
 def test_coarsen_coo_device_matches_host(rng):
     """Device-side Galerkin relabel+sum (fixed capacity) == host coarsen
     (ops/spgemm.coarsen_coo_device vs coarsen_graph)."""
-    from graph_embed_tpu.ops.spgemm import coarsen_coo_device
+    from graph_embed.ops.spgemm import coarsen_coo_device
 
     g = random_graph(rng, 50)
     v2a = rng.integers(0, 7, size=50).astype(np.int32)
@@ -197,8 +197,8 @@ def test_coarsen_coo_device_matches_host(rng):
 def test_coarsen_graph_device_chain_matches_host(rng):
     """HBM-resident Galerkin chain (coarsen_graph_device / backend="device")
     produces the same coarse matrices as the host chain, level by level."""
-    from graph_embed_tpu.embed.driver import build_galerkin_chain
-    from graph_embed_tpu.ops.spgemm import coarsen_graph_device
+    from graph_embed.embed.driver import build_galerkin_chain
+    from graph_embed.ops.spgemm import coarsen_graph_device
 
     g = random_graph(rng, 120)
     res = gt.partition_hierarchy(g, 0.2)
@@ -240,7 +240,7 @@ def _assert_hierarchies_equal(a, b):
 def test_native_matches_device_hierarchy(rng):
     """native/coarsen.cpp implements the identical mutual-best rounds: with
     the default hash tie-break the hierarchies agree exactly (weighted f64)."""
-    pytest.importorskip("graph_embed_tpu.native.coarsen_lib")
+    pytest.importorskip("graph_embed.native.coarsen_lib")
     g = random_graph(rng, 300, avg_deg=6)
     params = PartitionParams()
     dev = gt.partition_hierarchy(g, 1 / 8, params, backend="device")
@@ -251,7 +251,7 @@ def test_native_matches_device_hierarchy(rng):
 def test_native_matches_device_unit_weights_leaves_jitter(rng):
     """Unit weights + merge_leaves + weight_jitter: the degenerate-tie regime
     plus both auxiliary passes, still exact agreement."""
-    pytest.importorskip("graph_embed_tpu.native.coarsen_lib")
+    pytest.importorskip("graph_embed.native.coarsen_lib")
     g = random_graph(rng, 300, avg_deg=5, weighted=False)
     params = PartitionParams(merge_leaves=True, weight_jitter=0.01)
     dev = gt.partition_hierarchy(g, 1 / 8, params, backend="device")
@@ -260,7 +260,7 @@ def test_native_matches_device_unit_weights_leaves_jitter(rng):
 
 
 def test_native_single_and_num_parts(rng):
-    pytest.importorskip("graph_embed_tpu.native.coarsen_lib")
+    pytest.importorskip("graph_embed.native.coarsen_lib")
     g = random_graph(rng, 200, avg_deg=5)
     pd = gt.partition_single(g, backend="device")
     pn = gt.partition_single(g, backend="native")
@@ -278,7 +278,7 @@ def test_native_index_tiebreak_quality(rng):
     computed gains; XLA CPU's approximate division (tens of ulps) makes
     bitwise agreement impossible, so this mode is held to quality parity
     (same coarsening trajectory scale, close modularity)."""
-    pytest.importorskip("graph_embed_tpu.native.coarsen_lib")
+    pytest.importorskip("graph_embed.native.coarsen_lib")
     g = random_graph(rng, 300, avg_deg=6)
     params = PartitionParams(tie_break="index")
     dev = gt.partition_hierarchy(g, 1 / 8, params, backend="device")
@@ -296,7 +296,7 @@ def test_max_agg_size_cap(rng):
     sizes = np.bincount(np.asarray(dev.levels[0].vertex_to_agg))
     assert sizes.max() <= 4
     try:
-        from graph_embed_tpu.native import coarsen_lib  # noqa: F401
+        from graph_embed.native import coarsen_lib  # noqa: F401
         nat = gt.partition_hierarchy(g, 1 / 8, params, backend="native")
         _assert_hierarchies_equal(dev, nat)
     except OSError:
@@ -326,7 +326,7 @@ def test_force_coarsen_past_modularity_optimum():
     vertices left; the hierarchy path relaxes DeltaQ > 0 (force_coarsen_to)
     and still reaches a small coarsest level.  Device and native backends
     stay identical through absorb + relaxed rounds."""
-    from graph_embed_tpu.graph.synth import rmat
+    from graph_embed.graph.synth import rmat
 
     g = rmat(12, 8, seed=3, dtype=jnp.float64)
     res_n = gt.partition_hierarchy(g, 0.1, backend="native")
@@ -347,8 +347,8 @@ def test_greedy_native_matches_python(rng):
     """The native one-sided greedy (partitionBase semantics,
     partitioner.cpp:436-694) is bit-identical to the pure-Python
     transcription-equivalent, both variants, weighted and not."""
-    from graph_embed_tpu.partition.greedy import greedy_partition_py
-    from graph_embed_tpu.native import greedy_lib
+    from graph_embed.partition.greedy import greedy_partition_py
+    from graph_embed.native import greedy_lib
 
     if not greedy_lib.available():
         pytest.skip("no native toolchain")
@@ -406,7 +406,7 @@ def test_max_agg_size_original_units(rng):
         sizes = np.bincount(comp.vertex_to_agg_numpy(), minlength=comp.num_aggs)
         assert sizes.max() <= 10, (upto, sizes.max())
     try:
-        from graph_embed_tpu.native import coarsen_lib  # noqa: F401
+        from graph_embed.native import coarsen_lib  # noqa: F401
         nat = gt.partition_hierarchy(g, 1 / 8, params, backend="native")
         _assert_hierarchies_equal(dev, nat)
     except OSError:
@@ -424,8 +424,8 @@ def test_native_emitted_galerkin_chain(rng):
     work): identical sparsity structure to build_galerkin_chain's
     P^T A P and allclose weights (duplicate sums accumulate in a
     different order)."""
-    from graph_embed_tpu.embed.driver import build_galerkin_chain
-    from graph_embed_tpu.partition.hierarchy import partition_hierarchy
+    from graph_embed.embed.driver import build_galerkin_chain
+    from graph_embed.partition.hierarchy import partition_hierarchy
 
     for weighted in (False, True):
         g = random_graph(rng, 400, avg_deg=6, weighted=weighted)
@@ -448,9 +448,9 @@ def test_native_emitted_chain_with_leaves_and_jitter(rng):
     pre-merges (leaf_round -> contract -> diag) and weight_jitter (the
     emitted chain then carries the jittered weights, like the internal
     state the hierarchy itself used)."""
-    from graph_embed_tpu.embed.driver import build_galerkin_chain
-    from graph_embed_tpu.partition.hierarchy import partition_hierarchy
-    from graph_embed_tpu.utils.params import PartitionParams
+    from graph_embed.embed.driver import build_galerkin_chain
+    from graph_embed.partition.hierarchy import partition_hierarchy
+    from graph_embed.utils.params import PartitionParams
 
     g = random_graph(rng, 350, avg_deg=4, weighted=True)
     res = partition_hierarchy(

@@ -1,15 +1,15 @@
-"""Slot-space (Pallas fast-path) multilevel refinement vs the portable
-implementation (interpret mode on CPU)."""
+"""Slot-space multilevel refinement vs the portable implementation and the
+numpy oracle, and the one refine-route decision."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.forceatlas import multilevel as ml
-from graph_embed_tpu.forceatlas import multilevel_tiled as mlt
-from graph_embed_tpu.utils.params import MultilevelFAParams
+import graph_embed as gt
+from graph_embed.forceatlas import multilevel as ml
+from graph_embed.forceatlas import multilevel_tiled as mlt
+from graph_embed.utils.params import MultilevelFAParams
 
 
 def _level(rng, n=120, m=10, d=2, weighted=False):
@@ -30,7 +30,7 @@ def _level(rng, n=120, m=10, d=2, weighted=False):
 def test_refine_forces_match_portable(rng):
     g, part, v2a, coords_A = _level(rng)
     params = MultilevelFAParams()
-    layout = mlt.prepare_refine(g, part, params, tile=128)
+    layout = mlt.prepare_refine(g, part, params)
     coords_v = rng.uniform(-1, 1, size=(g.n, 2)).astype(np.float32)
 
     # portable reference forces (gram repulsion, f32 weights)
@@ -47,8 +47,7 @@ def test_refine_forces_match_portable(rng):
     pull_s = np.zeros((layout.n_slots, 2), np.float32)
     pull_s[slot] = np.asarray(pull_vec)
     got_s = mlt.refine_forces(jnp.asarray(coords_s), layout,
-                              jnp.asarray(pull_s), params, 2,
-                              interpret=True)
+                              jnp.asarray(pull_s), params, 2)
     got = np.asarray(got_s)[slot]
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
 
@@ -58,7 +57,7 @@ def test_refine_level_tiled_runs_and_packs(rng):
     r_A = rng.uniform(0.5, 1.0, size=8).astype(np.float32)
     out = np.asarray(mlt.refine_level_tiled(
         g, part, jnp.asarray(coords_A), jnp.asarray(r_A), 2,
-        key=jax.random.PRNGKey(0), iterations=4, interpret=True))
+        key=jax.random.PRNGKey(0), iterations=4))
     assert out.shape == (g.n, 2)
     assert np.isfinite(out).all()
     dist = np.linalg.norm(out - coords_A[v2a], axis=1)
@@ -82,9 +81,9 @@ def test_layout_invariants(rng):
 
 def test_sampled_bucket_repulsion_unbiased(rng):
     """Mean of the per-aggregate negative-sampling estimator over many keys
-    converges to the exact gram repulsion of the same bucket."""
+    converges to the exact repulsion of the same bucket."""
     m_b, S, dim = 3, 64, 2
-    x3 = np.zeros((mlt.ES.D_PAD, m_b, S), np.float32)
+    x3 = np.zeros((mlt.D_PAD, m_b, S), np.float32)
     cnts = [64, 40, 1]
     for b, c in enumerate(cnts):
         # jittered grid: separated points keep the 1/d^3 estimator variance
@@ -93,122 +92,23 @@ def test_sampled_bucket_repulsion_unbiased(rng):
         gx, gy = np.meshgrid(np.arange(8), np.arange(8))
         pts = np.stack([gx.ravel(), gy.ravel()], axis=0)[:, :c] * 0.3
         x3[:dim, b, :c] = pts + rng.uniform(-0.05, 0.05, size=(dim, c))
-        x3[mlt.ES.D_PAD - 1, b, :c] = rng.integers(0, 5, size=c)  # deg_loc
-        x3[mlt.ES.D_PAD - 1, b, c:] = -1.0                        # ghosts
+        x3[mlt.D_PAD - 1, b, :c] = rng.integers(0, 5, size=c)  # deg_loc
+        x3[mlt.D_PAD - 1, b, c:] = -1.0                        # ghosts
     x3 = jnp.asarray(x3)
-    exact = np.asarray(mlt._gram_batch_xla(x3, repel=1.3, eps=1e-5))
+    exact = np.asarray(mlt._diff_batch_xla(x3, 1.3, 1e-5, dim))
 
     @jax.jit
     def one(key):
-        return mlt._bucket_repulsion_sampled(x3, key, 512, 1.3, 1e-5, dim)
+        return mlt._bucket_repulsion_sampled(x3, key, jnp.arange(m_b), 512,
+                                             1.3, 1e-5, dim)
 
     acc = np.zeros_like(exact)
-    reps = 400
+    reps = 800
     for i in range(reps):
         acc += np.asarray(one(jax.random.PRNGKey(i)))
     got = acc / reps
     scale = np.abs(exact).max()
     np.testing.assert_allclose(got / scale, exact / scale, atol=2.2e-2)
-
-
-@pytest.mark.parametrize("S,dim", [(8, 2), (16, 3), (32, 3), (64, 3)])
-def test_roll_kernel_matches_gram(rng, S, dim):
-    """The lane-rotation repulsion kernel (interpret mode) equals the XLA
-    gram path on the same slot block, including ghost-slot masking."""
-    import jax.numpy as jnp
-    from functools import partial
-    from jax.experimental import pallas as pl
-
-    C = max(8, 128 // S) * 2
-    m_b = C * 3
-    x3 = np.zeros((mlt.ES.D_PAD, m_b, S), np.float32)
-    for b in range(m_b):
-        c = int(rng.integers(1, S + 1))
-        x3[:dim, b, :c] = rng.uniform(-1, 1, size=(dim, c))
-        x3[mlt.ES.D_PAD - 1, b, :c] = rng.integers(0, 5, size=c)
-        x3[mlt.ES.D_PAD - 1, b, c:] = -1.0
-    want = np.asarray(mlt._gram_batch_xla(jnp.asarray(x3), repel=1.3,
-                                          eps=1e-5))
-    x2 = jnp.asarray(x3.reshape(mlt.ES.D_PAD, m_b * S))
-    kernel = partial(mlt._bucket_repulsion_roll_kernel, S=S, dim=dim,
-                     repel=1.3, eps=1e-5)
-    got = pl.pallas_call(
-        kernel,
-        grid=(m_b // C,),
-        in_specs=[pl.BlockSpec((mlt.ES.D_PAD, C * S), lambda i: (0, i))],
-        out_specs=pl.BlockSpec((mlt.ES.D_PAD, C * S), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((mlt.ES.D_PAD, m_b * S), jnp.float32),
-        interpret=True,
-    )(x2)
-    # the oracle's gram-form d2 (sq + sq - 2 cross) cancels near pairs; the
-    # kernel's diff-form is exact -- tolerance covers the oracle's error
-    np.testing.assert_allclose(np.asarray(got).reshape(want.shape), want,
-                               rtol=5e-3, atol=5e-3)
-
-
-def test_small_bucket_meta(rng):
-    """prepare_refine dispatches small size-classes per the measured
-    roll/chunk crossover ('auto'); C*S stays block-aligned either way."""
-    g, part, v2a, _ = _level(rng, n=400, m=40)
-    for kind in ("auto", "chunk", "roll"):
-        layout = mlt.prepare_refine(g, part, MultilevelFAParams(),
-                                    small_kind=kind)
-        kinds = {S: k for (_, _, S, _, k) in layout.bucket_meta}
-        for S, k in kinds.items():
-            if not 2 <= S <= mlt.SMALL_MAX_S:
-                continue
-            if kind == "auto":
-                assert k == ("roll" if S <= mlt.ROLL_MAX_S else "chunk")
-            else:
-                assert k == kind
-        for (base, m_b, S, C, k) in layout.bucket_meta:
-            if k in ("chunk", "roll"):
-                assert (C * S) % 128 == 0 and m_b % C == 0
-                assert base % (C * S) == 0
-            if k == "chunk":
-                assert C * S == mlt.CHUNK_LANES and 128 % S == 0
-
-
-@pytest.mark.parametrize("S,dim,mxu", [(8, 2, False), (16, 3, False),
-                                       (32, 3, False), (32, 3, True),
-                                       (64, 3, True)])
-def test_chunk_kernel_matches_gram(rng, S, dim, mxu):
-    """The 128-slot chunk repulsion kernel (interpret mode) equals the XLA
-    gram path on the same slot block, including ghost-slot masking."""
-    import jax.numpy as jnp
-    from functools import partial
-    from jax.experimental import pallas as pl
-
-    bw = 512  # small CHUNK_LANES stand-in: 4 chunks per grid step
-    C = bw // S
-    m_b = C * 3
-    x3 = np.zeros((mlt.ES.D_PAD, m_b, S), np.float32)
-    for b in range(m_b):
-        c = int(rng.integers(1, S + 1))
-        x3[:dim, b, :c] = rng.uniform(-1, 1, size=(dim, c))
-        x3[mlt.ES.D_PAD - 1, b, :c] = rng.integers(0, 5, size=c)
-        x3[mlt.ES.D_PAD - 1, b, c:] = -1.0
-    want = np.asarray(mlt._gram_batch_xla(jnp.asarray(x3), repel=1.3,
-                                          eps=1e-5))
-    width = m_b * S
-    x2 = jnp.asarray(x3.reshape(mlt.ES.D_PAD, width))
-    xcols = x2.reshape(mlt.ES.D_PAD, width // 128, 128).transpose(1, 2, 0)
-    kernel = partial(mlt._bucket_repulsion_chunk_kernel, S=S, dim=dim,
-                     repel=1.3, eps=1e-5, use_mxu=mxu)
-    got = pl.pallas_call(
-        kernel,
-        grid=(width // bw,),
-        in_specs=[pl.BlockSpec((mlt.ES.D_PAD, bw), lambda i: (0, i)),
-                  pl.BlockSpec((bw // 128, 128, mlt.ES.D_PAD),
-                               lambda i: (i, 0, 0))],
-        out_specs=pl.BlockSpec((mlt.ES.D_PAD, bw), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((mlt.ES.D_PAD, width), jnp.float32),
-        interpret=True,
-    )(x2, xcols)
-    # the oracle's gram-form d2 (sq + sq - 2 cross) cancels near pairs; the
-    # kernel's diff-form is exact -- tolerance covers the oracle's error
-    np.testing.assert_allclose(np.asarray(got).reshape(want.shape), want,
-                               rtol=5e-3, atol=5e-3)
 
 
 def test_refine_level_tiled_sampled_oversize(rng):
@@ -229,34 +129,128 @@ def test_refine_level_tiled_sampled_oversize(rng):
     coords_A = rng.uniform(-1, 1, size=(m, 2)).astype(np.float32)
     r_A = rng.uniform(0.5, 1.0, size=m).astype(np.float32)
     params = MultilevelFAParams(sampled_slots_threshold=1024)
-    layout = mlt.prepare_refine(g, part, params, tile=128)
-    assert any(S >= 1024 for (_, _, S, _, _) in layout.bucket_meta)
+    layout = mlt.prepare_refine(g, part, params)
+    assert any(S >= 1024 for (_, _, S) in layout.bucket_meta)
     out = np.asarray(mlt.refine_level_tiled(
         g, part, jnp.asarray(coords_A), jnp.asarray(r_A), 2,
         key=jax.random.PRNGKey(0), iterations=4, params=params,
-        layout=layout, interpret=True))
+        layout=layout))
     assert np.isfinite(out).all()
     d = np.linalg.norm(out - coords_A[v2a], axis=1)
     assert np.all(d <= r_A[v2a] + 1e-4)
 
 
 def test_gram_batch_sliced_matches_batch(rng):
-    """The sliced batch gram (used when a bucket's chunk-transposed view
-    would out-grow HBM -- the mesh3d(256) level-0 OOM) must equal the
-    one-shot batch gram, including ghost padding of the last slice."""
-    import jax.numpy as jnp
+    """The sliced batch (used when a bucket's [m_b, S, S] interaction would
+    out-grow its byte budget) must equal the one-shot batch, including
+    ghost padding of the last slice."""
+    from graph_embed.forceatlas import multilevel_tiled as MT
 
-    from graph_embed_tpu.forceatlas import multilevel_tiled as MT
-
-    x = np.zeros((MT.ES.D_PAD, 7, 32), np.float32)
+    x = np.zeros((MT.D_PAD, 7, 32), np.float32)
     x[:3] = rng.uniform(-1, 1, (3, 7, 32))
     dval = rng.uniform(0, 4, (7, 32)).astype(np.float32)
     dval[:, 28:] = -1.0
-    x[MT.ES.D_PAD - 1] = dval
+    x[MT.D_PAD - 1] = dval
     x3 = jnp.asarray(x)
-    want = np.asarray(MT._gram_batch_xla(x3, 1.2, 1e-5))
+    want = np.asarray(MT._diff_batch_xla(x3, 1.2, 1e-5, 3))
     # force 2-aggregate slices (7 -> 4 slices with ghost padding)
-    got = np.asarray(MT._gram_batch_sliced(x3, 1.2, 1e-5,
+    got = np.asarray(MT._diff_batch_sliced(x3, 1.2, 1e-5, 3,
                                            max_bytes=2 * 32 * 32 * 4))
-    # f32 einsum contraction order differs between batch shapes
+    # f32 reduction order differs between batch shapes
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("S", [8, 16, 32, 64, 128])
+def test_bucket_repulsion_matches_oracle(rng, S, dim):
+    """Within-aggregate repulsion of one size class (diff form) against the
+    numpy transcription of forceatlas.hpp:394-410 (attraction, pull and
+    gravity switched off)."""
+    import oracle_ml
+
+    sizes = [S, S // 2 + 1, S - 1, S // 2 + 2]
+    n = sum(sizes)
+    v2a = np.repeat(np.arange(len(sizes)), sizes).astype(np.int32)
+    perm = rng.permutation(n)
+    v2a = v2a[perm]
+    s = rng.integers(0, n, 3 * n)
+    r = rng.integers(0, n, 3 * n)
+    keep = s != r
+    g = gt.from_edges(s[keep], r[keep], None, n=n, symmetrize=True,
+                      dtype=jnp.float32)
+    part = gt.Partition(jnp.asarray(v2a), len(sizes))
+    params = MultilevelFAParams(repel=1.3, attract=0.0, pull=0.0,
+                                gravity=0.0)
+    layout = mlt.prepare_refine(g, part, params)
+    assert {S_b for (_, _, S_b) in layout.bucket_meta} == {S}
+    coords = rng.uniform(-1, 1, size=(n, dim)).astype(np.float32)
+    slot = np.asarray(layout.slot_of_vertex)
+    cs = np.zeros((layout.n_slots, dim), np.float32)
+    cs[slot] = coords
+    got = np.asarray(mlt.refine_forces(
+        jnp.asarray(cs), layout, jnp.zeros_like(jnp.asarray(cs)), params,
+        dim))[slot]
+    deg = oracle_ml.ml_local_degrees(g, v2a)
+    want = oracle_ml.ml_forces(g, v2a, coords.astype(np.float64),
+                               np.zeros((len(sizes), dim)), deg, repel=1.3,
+                               attract=0.0, gravity=0.0, pull=0.0)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, atol=1e-5)
+
+
+@pytest.mark.parametrize("linlog,backend,want", [
+    (False, "auto", "portable"),
+    (True, "auto", "portable"),
+    (False, "tiled", "slots"),
+    (True, "tiled", "portable"),
+    (False, "portable", "portable"),
+    (True, "portable", "portable"),
+])
+def test_refine_route(linlog, backend, want):
+    """One function picks the refinement route, from the option and the
+    attraction form alone -- never from the platform."""
+    from graph_embed.embed.driver import refine_route
+
+    assert refine_route(MultilevelFAParams(linlog=linlog), backend) == want
+
+
+@pytest.mark.parametrize("backend,slot_calls", [("auto", 0), ("tiled", 2)])
+def test_embed_follows_refine_route(rng, monkeypatch, backend, slot_calls):
+    """embed() runs the route refine_route names at every level."""
+    from graph_embed.forceatlas import multilevel_tiled as MT
+
+    calls = []
+    orig = MT.refine_level_tiled
+    monkeypatch.setattr(MT, "refine_level_tiled",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    g, part, v2a, _ = _level(rng, n=200, m=16)
+    g2 = gt.build_galerkin_chain(g, [part])
+    parts2 = gt.partition_hierarchy(g2[1], 0.5).levels[:1]
+    graphs = gt.build_galerkin_chain(g, [part] + parts2)
+    out = gt.embed(graphs, [part] + parts2, 2, key=jax.random.PRNGKey(0),
+                   base_iterations=5, refine_iterations=2,
+                   refine_backend=backend)
+    assert np.isfinite(np.asarray(out)).all()
+    assert len(calls) == slot_calls
+
+
+def test_refine_route_rejects_unknown_backend():
+    from graph_embed.embed.driver import refine_route
+
+    with pytest.raises(ValueError, match="refine_backend"):
+        refine_route(MultilevelFAParams(), "pallas")
+
+
+def test_giant_bucket_blocked_matches_batch(rng):
+    """Row-blocked exact repulsion (giant aggregates) equals the one-shot
+    diff-form batch, including ghost slots and a ragged last row block."""
+    x = np.zeros((mlt.D_PAD, 3, 96), np.float32)
+    x[:3] = rng.uniform(-1, 1, (3, 3, 96))
+    dval = rng.uniform(0, 4, (3, 96)).astype(np.float32)
+    dval[:, 80:] = -1.0
+    x[mlt.D_PAD - 1] = dval
+    x3 = jnp.asarray(x)
+    want = np.asarray(mlt._diff_batch_xla(x3, 1.2, 1e-5, 3))
+    got = np.asarray(mlt._diff_blocked_xla(x3, 3, 1.2, 1e-5, block=40))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, atol=1e-6)

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.forceatlas.flat import fa_step
-from graph_embed_tpu.parallel import (make_mesh, make_sharded_fa_step,
+import graph_embed as gt
+from graph_embed.forceatlas.flat import fa_step
+from graph_embed.parallel import (make_mesh, make_sharded_fa_step,
                                       pad_graph_for_mesh)
-from graph_embed_tpu.utils.params import ForceAtlasParams
+from graph_embed.utils.params import ForceAtlasParams
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from conftest import random_graph
@@ -78,7 +78,7 @@ def test_sharded_multi_step_consistency(rng):
 
 def test_sharded_sampled_runs(rng):
     g = random_graph(rng, 128, dtype="float64")
-    from graph_embed_tpu.parallel import sharded_force_atlas
+    from graph_embed.parallel import sharded_force_atlas
 
     params = ForceAtlasParams(repulsion="sampled", num_negative_samples=32)
     mesh = make_mesh(8)
@@ -90,16 +90,15 @@ def test_sharded_sampled_runs(rng):
 
 def test_sharded_fa_auto_sampled_repulsion(rng, monkeypatch):
     """A dense-repulsion block over DENSE_D2_MAX_BYTES auto-switches
-    sharded_force_atlas to the sampled estimator instead of OOMing HBM
-    (measured: the default gram at embed()'s mesh_min_n=65536 scale is a
-    17.2 GB [n, n] block on one chip, round 4).  The switched run is
-    BITWISE the explicit repulsion='sampled' run."""
-    from graph_embed_tpu.parallel import sharded as SH
+    sharded_force_atlas to the sampled estimator instead of running out of
+    device memory (the default gram at embed()'s mesh_min_n=65536 scale is
+    a 17.2 GB [n, n] block on one device).  The switched run is BITWISE the
+    explicit repulsion='sampled' run."""
+    from graph_embed.parallel import sharded as SH
 
     g = random_graph(rng, 96, dtype="float64")
     mesh = make_mesh(4)
-    kw = dict(mesh=mesh, iterations=2, key=jax.random.PRNGKey(7),
-              tiled=False)
+    kw = dict(mesh=mesh, iterations=2, key=jax.random.PRNGKey(7))
     want = np.asarray(SH.sharded_force_atlas(
         g, 2, params=ForceAtlasParams(repulsion="sampled"), **kw))
     monkeypatch.setattr(SH, "DENSE_D2_MAX_BYTES", 64)
@@ -108,191 +107,25 @@ def test_sharded_fa_auto_sampled_repulsion(rng, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
-def test_sharded_fa_tiled_path_matches_portable(rng):
-    """sharded_force_atlas(tiled=True) -- the Pallas-SpMV attraction route
-    the product mesh base case rides on TPU -- matches the portable XLA
-    step allclose (folded weights, interpret mode on the CPU mesh), at 1
-    and 4 devices."""
-    from graph_embed_tpu.parallel.sharded import sharded_force_atlas
-
-    g = random_graph(rng, 160, dtype="float64")
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16)
-    for ndev in (1, 4):
-        mesh = make_mesh(ndev)
-        kw = dict(mesh=mesh, params=params, iterations=2,
-                  key=jax.random.PRNGKey(3))
-        want = np.asarray(sharded_force_atlas(g, 3, tiled=False, **kw))
-        got = np.asarray(sharded_force_atlas(g, 3, tiled=True, **kw))
-        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
-
-
-def test_sharded_fa_tiled_linlog_matches_portable(rng):
-    """linlog through the sharded tiled route (round-4 VERDICT item 6):
-    per-shard v1 EdgeTiles + psum'd attraction_tiled replaces the former
-    portable-only fallback; matches the portable XLA step allclose."""
-    from graph_embed_tpu.parallel.sharded import sharded_force_atlas
-
-    g = random_graph(rng, 160, dtype="float64", weighted=True)
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16,
-                              linlog=True)
-    for ndev in (1, 4):
-        mesh = make_mesh(ndev)
-        kw = dict(mesh=mesh, params=params, iterations=2,
-                  key=jax.random.PRNGKey(3))
-        want = np.asarray(sharded_force_atlas(g, 3, tiled=False, **kw))
-        got = np.asarray(sharded_force_atlas(g, 3, tiled=True, **kw))
-        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
-
-
-def test_sharded_fa_unit_jumbo_packing(rng, monkeypatch):
-    """Folded-unit graphs past UNIT_JUMBO_MIN_EDGES take the jumbo unit
-    packing (4096^2, k-grouped slabs -- the prepare_tiled fast path)
-    inside sharded_force_atlas's tiled route; results match the portable
-    step allclose at 1 and 4 devices."""
-    from graph_embed_tpu.parallel import sharded as SH
-
-    n = 640
-    s = rng.integers(0, n, size=4000)
-    r = rng.integers(0, n, size=4000)
-    keep = s != r
-    g = gt.from_edges(np.asarray(s[keep]), np.asarray(r[keep]), None, n=n,
-                      symmetrize=True, dtype=jnp.float64)
-    sco, rco, _ = g.to_coo_numpy()
-    g = gt.from_edges(sco, rco, np.ones(sco.size), n=n, symmetrize=False,
-                      dtype=jnp.float64)
-    monkeypatch.setattr(SH, "UNIT_JUMBO_MIN_EDGES", 100)
-    _, aux, _ = SH.build_sharded_tiles(g, 2, params=ForceAtlasParams())
-    assert aux.packing == "unit" and aux.sender_block == 4096
-    assert aux.group > 1
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16)
-    for ndev in (1, 4):
-        mesh = make_mesh(ndev)
-        kw = dict(mesh=mesh, params=params, iterations=2,
-                  key=jax.random.PRNGKey(5))
-        want = np.asarray(SH.sharded_force_atlas(g, 3, tiled=False, **kw))
-        got = np.asarray(SH.sharded_force_atlas(g, 3, tiled=True, **kw))
-        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
-
-
-def test_sharded_tiled_step_matches_xla_step(rng):
-    """Pallas-SpMV attraction inside shard_map == XLA sharded step (unit
-    weights; interpret mode on the virtual CPU mesh)."""
-    from graph_embed_tpu.parallel.sharded import (build_sharded_tiles,
-                                                  make_sharded_fa_step_tiled)
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-    import numpy as np
-
-    n = 96
-    m = n * 3
-    s = rng.integers(0, n, size=m)
-    r = rng.integers(0, n, size=m)
-    keep = s != r
-    g = gt.from_edges(s[keep], r[keep], None, n=n, symmetrize=True,
-                      dtype=jnp.float32)
-    ndev = 4
-    mesh = make_mesh(ndev)
-    params = ForceAtlasParams(repulsion="gram")
-
-    stacked, aux, dia = build_sharded_tiles(g, ndev, tile=128)
-    assert dia is None  # random graph: no dominant offsets at threshold 0
-    # row sums of packed (bf16) weights across all shards
-    deg_w_np = np.zeros(aux.n_pad, np.float32)
-    for d in range(ndev):
-        t = ES.WindowTiles(
-            sbf=stacked["sbf"][d], rw=stacked["rw"][d],
-            packed=stacked["packed"][d],
-            overflow_s=np.zeros(0, np.int32),
-            overflow_r=np.zeros(0, np.int32),
-            overflow_w=np.zeros(0, np.float32),
-            n_sblocks=aux.n_sblocks, tile=aux.tile, fill=aux.fill,
-            sender_block=aux.sender_block, window=aux.window)
-        deg_w_np += ES.tiled_row_sums(t)
-    deg_w = jnp.asarray(deg_w_np)
-
-    step, n_pad = make_sharded_fa_step_tiled(
-        mesh, aux, aux.n_pad, 3, params, g.n, deg_w, interpret=True)
-    coords = jnp.zeros((n_pad, 3)).astype(jnp.float32).at[: g.n].set(
-        jnp.asarray(rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)))
-    fprev = jnp.zeros((n_pad, 3), jnp.float32)
-    deg = jnp.zeros(n_pad, jnp.float32).at[: g.n].set(
-        g.degrees(True).astype(jnp.float32))
-
-    put = lambda a, spec: jax.device_put(a, NamedSharding(mesh, spec))
-    out, _ = step(put(coords, P()), put(fprev, P("x")),
-                  put(jnp.asarray(stacked["sbf"]), P("x")),
-                  put(jnp.asarray(stacked["rw"]), P("x")),
-                  put(jnp.asarray(stacked["packed"]), P("x")),
-                  put(jnp.zeros((1, n_pad), jnp.float32), P(None, "x")),
-                  put(deg, P()), jax.random.PRNGKey(0))
-
-    want, _ = fa_step(coords[: g.n], fprev[: g.n], g,
-                      deg[: g.n], params)
-    np.testing.assert_allclose(np.asarray(out)[: g.n], np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
-
-
-def test_sharded_tiled_dia_step_matches_xla_step(rng):
-    """DIA rolls inside the sharded step (vertex-block dia_w, replicated
-    coords, zero extra comm) + residual SpMV == the XLA step."""
-    from graph_embed_tpu.graph.synth import mesh3d
-    from graph_embed_tpu.ops import dia as DIA
-    from graph_embed_tpu.parallel.sharded import (build_sharded_tiles,
-                                                  make_sharded_fa_step_tiled)
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-    import numpy as np
-
-    g = mesh3d(5, extra_frac=0.3, seed=7)
-    ndev = 4
-    mesh = make_mesh(ndev)
-    params = ForceAtlasParams(repulsion="gram")
-
-    stacked, aux, dia = build_sharded_tiles(g, ndev, tile=128,
-                                            dia_min_count=16)
-    assert dia is not None and len(dia.offsets) >= 6
-
-    deg_w_np = np.zeros(aux.n_pad, np.float32)
-    for d in range(ndev):
-        t = ES.WindowTiles(
-            sbf=stacked["sbf"][d], rw=stacked["rw"][d],
-            packed=stacked["packed"][d],
-            overflow_s=np.zeros(0, np.int32),
-            overflow_r=np.zeros(0, np.int32),
-            overflow_w=np.zeros(0, np.float32),
-            n_sblocks=aux.n_sblocks, tile=aux.tile, fill=aux.fill,
-            sender_block=aux.sender_block, window=aux.window)
-        deg_w_np += ES.tiled_row_sums(t)
-    deg_w_np += DIA.dia_row_sums(dia.weights)
-    deg_w = jnp.asarray(deg_w_np)
-
-    step, n_pad = make_sharded_fa_step_tiled(
-        mesh, aux, aux.n_pad, 3, params, g.n, deg_w, interpret=True,
-        dia_offsets=dia.offsets)
-    dia_w = np.zeros((len(dia.offsets), n_pad), np.float32)
-    dia_w[:, : dia.weights.shape[1]] = dia.weights
-    coords = jnp.zeros((n_pad, 3)).astype(jnp.float32).at[: g.n].set(
-        jnp.asarray(rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)))
-    fprev = jnp.zeros((n_pad, 3), jnp.float32)
-    deg = jnp.zeros(n_pad, jnp.float32).at[: g.n].set(
-        g.degrees(True).astype(jnp.float32))
-
-    put = lambda a, spec: jax.device_put(a, NamedSharding(mesh, spec))
-    out, _ = step(put(coords, P()), put(fprev, P("x")),
-                  put(jnp.asarray(stacked["sbf"]), P("x")),
-                  put(jnp.asarray(stacked["rw"]), P("x")),
-                  put(jnp.asarray(stacked["packed"]), P("x")),
-                  put(jnp.asarray(dia_w), P(None, "x")),
-                  put(deg, P()), jax.random.PRNGKey(0))
-
-    want, _ = fa_step(coords[: g.n], fprev[: g.n], g, deg[: g.n], params)
-    np.testing.assert_allclose(np.asarray(out)[: g.n], np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
-
-
 def test_multihost_helpers():
-    from graph_embed_tpu.parallel import multihost
+    from graph_embed.parallel import multihost
 
     multihost.init_distributed()  # no-op single process
     mesh = multihost.global_mesh()
     assert mesh.devices.size == len(jax.devices())
     lo, hi = multihost.process_local_edge_slice(1024)
     assert (lo, hi) == (0, 1024)  # single process owns everything
+
+
+@pytest.mark.parametrize("n_devices", [9, 16, 64])
+def test_make_mesh_raises_beyond_backend(n_devices):
+    """Asking for more devices than the backend has is an error; there is
+    no silent swap to other devices."""
+    with pytest.raises(ValueError, match="requested"):
+        make_mesh(n_devices)
+
+
+def test_make_mesh_uses_default_backend_devices():
+    mesh = make_mesh(4)
+    assert mesh.devices.size == 4
+    assert all(d in jax.devices() for d in mesh.devices.flat)

@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.forceatlas.multilevel import force_atlas_multilevel
-from graph_embed_tpu.parallel.mesh import make_mesh
-from graph_embed_tpu.parallel.sharded_ml import (prepare_refine_sharded,
+import graph_embed as gt
+from graph_embed.forceatlas.multilevel import force_atlas_multilevel
+from graph_embed.parallel.mesh import make_mesh
+from graph_embed.parallel.sharded_ml import (prepare_refine_sharded,
                                                  refine_level_sharded)
-from graph_embed_tpu.utils.params import MultilevelFAParams
+from graph_embed.utils.params import MultilevelFAParams
 
 from conftest import random_graph
 
@@ -118,3 +118,24 @@ def test_embed_mesh_small_levels_replicated(rng):
                               mesh_min_n=200))
     assert out.shape == (g.n, 2)
     assert np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("sharding", ["replicated", "halo"])
+def test_embed_mesh_sampled_buckets_device_count_invariant(rng, sharding):
+    """Sampled within-aggregate repulsion (every bucket past a threshold of
+    16 slots) keys its draws by the global aggregate id, so the sharded
+    embed stays device-count invariant with it on."""
+    from graph_embed.utils.params import MultilevelFAParams
+
+    g = random_graph(rng, 500, avg_deg=6, weighted=False)
+    res = gt.partition_hierarchy(g, 0.25)
+    graphs = gt.build_galerkin_chain(g, res.levels)
+    params = MultilevelFAParams(sampled_slots_threshold=16,
+                                num_negative_samples=8)
+    outs = [np.asarray(gt.embed(
+        graphs, res.levels, 2, key=jax.random.PRNGKey(5),
+        base_iterations=10, refine_iterations=4, refine_params=params,
+        mesh=make_mesh(ndev), mesh_min_n=1, sharding=sharding))
+        for ndev in (1, 4)]
+    # same draws; only f32 sums of other shapes (per-device bucket sizes)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=2e-5, atol=1e-5)

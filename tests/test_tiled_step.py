@@ -1,7 +1,8 @@
-"""Tiled (Pallas fast-path) FA step vs the XLA step (interpret mode on CPU).
+"""Transposed-layout FA step (DIA rolls + edge-list SpMV + diff-form
+sampled repulsion) vs the reference flat step.
 
-Unit-weight graphs must match the XLA path tightly (the packed bf16 weight
-path is exact for w = 1); weighted graphs within bf16 weight rounding.
+Per-edge constants are folded on the host in f32, so weighted and unit
+graphs match the flat step to float32 rounding.
 """
 
 import numpy as np
@@ -9,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import graph_embed_tpu as gt
-from graph_embed_tpu.forceatlas import tiled as TL
-from graph_embed_tpu.forceatlas.flat import fa_step
-from graph_embed_tpu.utils.params import ForceAtlasParams
+import graph_embed as gt
+from graph_embed.forceatlas import tiled as TL
+from graph_embed.forceatlas.flat import fa_step
+from graph_embed.utils.params import ForceAtlasParams
 
 from conftest import random_graph
 
@@ -30,7 +31,7 @@ def _graph32(rng, n, weighted):
 def test_tiled_step_matches_xla_unit_weights(rng):
     g = _graph32(rng, 200, weighted=False)
     params = ForceAtlasParams(repulsion="gram")
-    tfa = TL.prepare_tiled(g, 3, params, tile=128, interpret=True, spmv_mode="packed")
+    tfa = TL.prepare_tiled(g, 3, params)
     coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32))
     fprev = jnp.zeros_like(coords)
     deg = g.degrees(True).astype(jnp.float32)
@@ -45,33 +46,18 @@ def test_tiled_step_matches_xla_unit_weights(rng):
 def test_tiled_step_weighted_close(rng):
     g = _graph32(rng, 150, weighted=True)
     params = ForceAtlasParams(repulsion="gram")
-    tfa = TL.prepare_tiled(g, 2, params, tile=128, interpret=True, spmv_mode="packed")
+    tfa = TL.prepare_tiled(g, 2, params)
     coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 2)).astype(np.float32))
     fprev = jnp.zeros_like(coords)
     deg = g.degrees(True).astype(jnp.float32)
     got_x, _ = TL.fa_step_tiled(coords, fprev, tfa, params)
     want_x, _ = fa_step(coords, fprev, g, deg, params)
-    # bf16 weight rounding: ~0.4% relative on the attraction term
     np.testing.assert_allclose(np.asarray(got_x), np.asarray(want_x),
-                               rtol=2e-2, atol=2e-2)
-
-
-def test_spmv_windowed_matches_matvec(rng):
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-
-    g = _graph32(rng, 300, weighted=False)
-    tiles = ES.build_window_tiles(g, tile=128)
-    x = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    xT = ES.pad_coords_T(jnp.asarray(x), tiles.n_pad)
-    yT = ES.spmv_windowed(xT, tiles, interpret=True)
-    got = np.asarray(ES.unpad_coords_T(yT, g.n, 3))
-    A = g.to_dense_numpy()
-    want = A @ x
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_reorder_utilities(rng):
-    from graph_embed_tpu.graph import reorder
+    from graph_embed.graph import reorder
 
     g = _graph32(rng, 100, weighted=False)
     perm = reorder.rcm_order(g)
@@ -85,52 +71,11 @@ def test_reorder_utilities(rng):
     assert sorted(perm2.tolist()) == list(range(g.n))
 
 
-def test_reorder_improves_fill(rng):
-    """RCM ordering should not hurt tiling fill on a ring-like graph."""
-    from graph_embed_tpu.graph import reorder
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-
-    n = 8192
-    s = np.arange(n)
-    r = (s * 97 + 13) % n  # scrambled ring: terrible locality
-    g = gt.from_edges(s, r, None, n=n, symmetrize=True, dtype=jnp.float32)
-    kw = dict(tile=128, sender_block=128, window=128)
-    fill0 = ES.build_window_tiles(g, **kw).fill
-    g2, _ = reorder.apply_order(g, reorder.rcm_order(g))
-    fill1 = ES.build_window_tiles(g2, **kw).fill
-    assert fill1 > 2 * fill0
-
-
-def test_overflow_path_matches(rng):
-    """min_pair_edges diverts sparse (block, window) pairs to the XLA
-    overflow path; the combined SpMV must still match the dense product."""
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-
-    n = 8192
-    # a few clustered edges + many scattered ones
-    s1 = np.arange(0, 1000)
-    r1 = (s1 + 1) % 1000
-    s2 = rng.integers(0, n, size=400)
-    r2 = rng.integers(0, n, size=400)
-    keep = s2 != r2
-    g = gt.from_edges(np.concatenate([s1, s2[keep]]),
-                      np.concatenate([r1, r2[keep]]), None, n=n,
-                      symmetrize=True, dtype=jnp.float32)
-    tiles = ES.build_window_tiles(g, tile=128, min_pair_edges=8)
-    assert tiles.num_overflow > 0
-    x = rng.uniform(-1, 1, size=(n, 3)).astype(np.float32)
-    xT = ES.pad_coords_T(jnp.asarray(x), tiles.n_pad)
-    yT = ES.spmv_windowed(xT, tiles, interpret=True)
-    got = np.asarray(ES.unpad_coords_T(yT, n, 3))
-    want = g.to_dense_numpy() @ x
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
 def test_tiled_step_linlog_matches_xla(rng):
-    """linlog rides the v1 per-edge kernel inside the tiled step."""
+    """linlog rides the two-endpoint edge form inside the tiled step."""
     g = _graph32(rng, 120, weighted=True)
     params = ForceAtlasParams(repulsion="gram", linlog=True)
-    tfa = TL.prepare_tiled(g, 2, params, tile=128, interpret=True, spmv_mode="packed")
+    tfa = TL.prepare_tiled(g, 2, params)
     coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 2)).astype(np.float32))
     fprev = jnp.zeros_like(coords)
     deg = g.degrees(True).astype(jnp.float32)
@@ -153,133 +98,45 @@ def _unit_graph(rng, n):
                          dtype=jnp.float32)
 
 
-def test_spmv_windowed_unit_packing_matches_matvec(rng):
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-
-    g = _unit_graph(rng, 700)
-    tiles = ES.build_window_tiles(g, tile=128, packing="unit",
-                                  sender_block=512, window=512)
-    assert tiles.packing == "unit"
-    x = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    xT = ES.pad_coords_T(jnp.asarray(x), tiles.n_pad)
-    yT = ES.spmv_windowed(xT, tiles, interpret=True)
-    got = np.asarray(ES.unpad_coords_T(yT, g.n, 3))
-    A = g.to_dense_numpy()
-    want = A @ x
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    # row sums decode the validity bit, not a weight field
-    deg = np.asarray(ES.tiled_row_sums(tiles))[: g.n]
-    np.testing.assert_allclose(deg, A.sum(axis=1), rtol=1e-6, atol=1e-6)
-
-
-def test_tiled_step_unit_autoselects_wide_slabs(rng):
-    g = _unit_graph(rng, 600)
-    params = ForceAtlasParams(repulsion="gram")
-    tfa = TL.prepare_tiled(g, 2, params, tile=128, interpret=True, spmv_mode="packed")
-    assert tfa.tiles.packing == "unit"
-    assert tfa.tiles.sender_block == TL.UNIT_SENDER_BLOCK
-    coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 2)).astype(np.float32))
-    fprev = jnp.zeros_like(coords)
-    deg = g.degrees(True).astype(jnp.float32)
-    got_x, got_f = TL.fa_step_tiled(coords, fprev, tfa, params)
-    want_x, want_f = fa_step(coords, fprev, g, deg, params)
-    np.testing.assert_allclose(np.asarray(got_f), np.asarray(want_f),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got_x), np.asarray(want_x),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_tiled_step_bsr_mode_matches_xla(rng):
-    """Dense-block (BSR) attraction path: full-step parity with the XLA
-    reference step on unit weights (bf16 blocks are exact for w = 1)."""
-    g = _unit_graph(rng, 700)
-    params = ForceAtlasParams(repulsion="gram")
-    tfa = TL.prepare_tiled(g, 2, params, interpret=True, spmv_mode="bsr")
-    from graph_embed_tpu.ops.bsr import BsrBlocks
-    assert isinstance(tfa.tiles, BsrBlocks)
-    coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 2)).astype(np.float32))
-    fprev = jnp.zeros_like(coords)
-    deg = g.degrees(True).astype(jnp.float32)
-    got_x, got_f = TL.fa_step_tiled(coords, fprev, tfa, params)
-    want_x, want_f = fa_step(coords, fprev, g, deg, params)
-    np.testing.assert_allclose(np.asarray(got_f), np.asarray(want_f),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got_x), np.asarray(want_x),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_bsr_overflow_split(rng):
-    """Sparse pairs divert to the COO overflow path and still sum correctly."""
-    from graph_embed_tpu.ops import bsr as B
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-
-    n = 1500
-    s = rng.integers(0, n, 9000)
-    r = rng.integers(0, n, 9000)
-    keep = s != r
-    w = rng.uniform(0.5, 2.0, keep.sum())
-    g = gt.from_edges(s[keep], r[keep], w, n=n, symmetrize=True,
-                      dtype=jnp.float32)
-    bsr = B.build_bsr(g, min_pair_edges=400)
-    assert bsr.num_overflow > 0
-    x = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    xT = ES.pad_coords_T(jnp.asarray(x), bsr.n_pad)
-    got = np.asarray(ES.unpad_coords_T(B.spmv_bsr(xT, bsr), g.n, 3))
-    want = g.to_dense_numpy() @ x
-    # bf16 rounding of the densified weights accumulates over each row's
-    # ~20 weighted edges (same 2e-2 contract as the packed bf16 step test)
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
-
-
 def test_fused_sampled_repulsion_matches_xla(rng):
-    """The fused Pallas estimator equals forces.repulsion_sampled given the
-    same key (same sample draw)."""
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-    from graph_embed_tpu.ops.pallas import repulsion as RP
-    from graph_embed_tpu.forceatlas import forces as F
+    """The transposed estimator (one fused XLA pass over [n_pad, s]) equals
+    the row-major forces.repulsion_sampled and a float64 transcription on
+    the same key (same sample draw); padded columns stay zero."""
+    from graph_embed.forceatlas import forces as F
+    from graph_embed.ops import spmv as SP
 
     n, d, s = 700, 3, 64
     coords = jnp.asarray(rng.uniform(-1, 1, size=(n, d)).astype(np.float32))
     deg_p1 = jnp.asarray(rng.uniform(1, 5, size=(n,)).astype(np.float32))
     key = jax.random.PRNGKey(42)
-    want = np.asarray(F.repulsion_sampled(coords, deg_p1, 1.3, 1e-5, key, s))
+    row = np.asarray(F.repulsion_sampled(coords, deg_p1, 1.3, 1e-5, key, s))
 
     n_pad = 1024
-    xT = ES.pad_coords_T(coords, n_pad)
+    xT = SP.pad_coords_T(coords, n_pad)
     deg_pad = jnp.zeros(n_pad, jnp.float32).at[:n].set(deg_p1)
-    repT = RP.repulsion_sampled_fused(xT, deg_pad, key, n=n, num_samples=s,
-                                      repel=1.3, eps=1e-5, interpret=True)
-    got = np.asarray(ES.unpad_coords_T(repT, n, d))
-    # the kernel's diff-form d2 is exact in f32; the XLA estimator's gram
-    # form retains ~0.6% residual cancellation error on near pairs even at
-    # HIGHEST precision (an f64 oracle sits within 5e-5 of the kernel)
-    np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
+    repT = np.asarray(F.repulsion_sampled_T(xT, deg_pad, key, n=n,
+                                            num_samples=s, repel=1.3,
+                                            eps=1e-5, dim=d))
+    np.testing.assert_allclose(repT[:d, :n].T, row, rtol=1e-6, atol=1e-6)
+    assert not repT[d:].any()
 
-
-def test_spmv_windowed_dmax_trim_matches_full(rng):
-    """dmax=4 trims the stacked matmuls to the rows that carry data; results
-    must equal the full-D_PAD kernel on both packings (rows 4.. stay zero)."""
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-
-    g = _unit_graph(rng, 700)
-    for packing, win in (("unit", 1024), ("bf16", 256)):
-        tiles = ES.build_window_tiles(g, tile=128, packing=packing,
-                                      sender_block=256, window=win)
-        x = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-        xT = ES.pad_coords_T(jnp.asarray(x), tiles.n_pad)
-        y8 = ES.spmv_windowed(xT, tiles, interpret=True, dmax=8)
-        y4 = ES.spmv_windowed(xT, tiles, interpret=True, dmax=4)
-        np.testing.assert_array_equal(np.asarray(y4), np.asarray(y8))
-        assert not np.asarray(y4[4:]).any()
+    idx = np.asarray(jax.random.randint(key, (s,), 0, n))
+    x64 = np.asarray(coords, np.float64)
+    dg = np.asarray(deg_p1, np.float64)
+    diff = x64[:, None, :] - x64[idx][None, :, :]
+    dist = np.maximum(np.sqrt((diff ** 2).sum(-1)), 1e-5)
+    w = dg[idx][None, :] / dist ** 3
+    w[np.arange(n)[:, None] == idx[None, :]] = 0.0
+    want = 1.3 * dg[:, None] * (w[:, :, None] * diff).sum(1) * (n / s)
+    np.testing.assert_allclose(row, want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def test_fa_step_tiled_T_matches_row_major(rng):
     """The transposed-state step must reproduce fa_step_tiled exactly: every
     force term is identical and the sublane reductions see exact zeros in
     rows dim..D_PAD."""
-    from graph_embed_tpu.forceatlas import tiled as TL
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-    from graph_embed_tpu.utils.params import ForceAtlasParams
+    from graph_embed.ops import spmv as SP
 
     g = _unit_graph(rng, 900)
     params = ForceAtlasParams(repulsion="sampled", num_negative_samples=32)
@@ -289,12 +146,12 @@ def test_fa_step_tiled_T_matches_row_major(rng):
     fprev = jnp.zeros_like(coords)
     c_row, f_row = TL.fa_step_tiled(coords, fprev, tfa, params, key)
 
-    xT = ES.pad_coords_T(coords, tfa.n_pad)
+    xT = SP.pad_coords_T(coords, tfa.n_pad)
     fprevT = jnp.zeros_like(xT)
     xT2, fT = TL.fa_step_tiled_T(xT, fprevT, tfa, params, key)
-    np.testing.assert_allclose(np.asarray(ES.unpad_coords_T(xT2, g.n, 3)),
+    np.testing.assert_allclose(np.asarray(SP.unpad_coords_T(xT2, g.n, 3)),
                                np.asarray(c_row), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ES.unpad_coords_T(fT, g.n, 3)),
+    np.testing.assert_allclose(np.asarray(SP.unpad_coords_T(fT, g.n, 3)),
                                np.asarray(f_row), rtol=1e-6, atol=1e-6)
     # padded columns and rows dim.. stay exactly zero (loop invariant)
     assert not np.asarray(xT2[3:, :]).any()
@@ -303,9 +160,9 @@ def test_fa_step_tiled_T_matches_row_major(rng):
 
 def test_dia_plan_matches_dense(rng):
     """DIA + residual decomposition reproduces A @ x exactly (f32)."""
-    from graph_embed_tpu.graph.synth import mesh3d
-    from graph_embed_tpu.ops import dia as DIA
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
+    from graph_embed.graph.synth import mesh3d
+    from graph_embed.ops import dia as DIA
+    from graph_embed.ops import spmv as SP
 
     g = mesh3d(6, extra_frac=0.2, seed=3)
     s, r, w = g.to_coo_numpy()
@@ -314,7 +171,7 @@ def test_dia_plan_matches_dense(rng):
     assert plan is not None and len(plan.offsets) >= 6
     assert 0.5 < plan.coverage < 1.0  # random extras stay residual
     x = rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32)
-    xT = ES.pad_coords_T(jnp.asarray(x), n_pad)
+    xT = SP.pad_coords_T(jnp.asarray(x), n_pad)
     y_dia = np.asarray(DIA.dia_spmv(xT, jnp.asarray(plan.weights),
                                     plan.offsets))[:3, :g.n].T
     rm = plan.residual_mask
@@ -329,14 +186,13 @@ def test_dia_plan_matches_dense(rng):
 
 
 def test_tiled_step_dia_hybrid_matches_xla(rng):
-    """Mesh + random extras: DIA absorbs the stencil, kernel the rest."""
-    from graph_embed_tpu.graph.synth import mesh3d
+    """Mesh + random extras: DIA absorbs the stencil, the SpMV the rest."""
+    from graph_embed.graph.synth import mesh3d
 
     g = mesh3d(6, extra_frac=0.3, seed=5)
     params = ForceAtlasParams(repulsion="gram")
-    tfa = TL.prepare_tiled(g, 3, params, tile=128, interpret=True,
-                           dia_min_count=32)
-    assert tfa.dia_offsets and tfa.tiles is not None
+    tfa = TL.prepare_tiled(g, 3, params, dia_min_count=32)
+    assert tfa.dia_offsets and tfa.edges is not None
     coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32))
     fprev = jnp.zeros_like(coords)
     deg = g.degrees(True).astype(jnp.float32)
@@ -349,14 +205,14 @@ def test_tiled_step_dia_hybrid_matches_xla(rng):
 
 
 def test_tiled_step_pure_dia_matches_xla(rng):
-    """Pure mesh: every edge on a diagonal -> no windowed kernel at all."""
-    from graph_embed_tpu.graph.synth import mesh3d
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
+    """Pure mesh: every edge on a diagonal -> no edge-list SpMV at all."""
+    from graph_embed.graph.synth import mesh3d
+    from graph_embed.ops import spmv as SP
 
     g = mesh3d(6)
     params = ForceAtlasParams(repulsion="gram")
-    tfa = TL.prepare_tiled(g, 3, params, interpret=True, dia_min_count=32)
-    assert tfa.tiles is None and len(tfa.dia_offsets) == 6
+    tfa = TL.prepare_tiled(g, 3, params, dia_min_count=32)
+    assert tfa.edges is None and len(tfa.dia_offsets) == 6
     coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32))
     fprev = jnp.zeros_like(coords)
     deg = g.degrees(True).astype(jnp.float32)
@@ -365,91 +221,29 @@ def test_tiled_step_pure_dia_matches_xla(rng):
     np.testing.assert_allclose(np.asarray(got_f), np.asarray(want_f),
                                rtol=1e-4, atol=1e-4)
     # transposed-state step agrees too
-    xT = ES.pad_coords_T(coords, tfa.n_pad)
+    xT = SP.pad_coords_T(coords, tfa.n_pad)
     xT2, _ = TL.fa_step_tiled_T(xT, jnp.zeros_like(xT), tfa, params)
-    np.testing.assert_allclose(np.asarray(ES.unpad_coords_T(xT2, g.n, 3)),
+    np.testing.assert_allclose(np.asarray(SP.unpad_coords_T(xT2, g.n, 3)),
                                np.asarray(got_x), rtol=1e-6, atol=1e-6)
 
 
-def test_fused_dia_step_matches_composed(rng):
-    """Whole-iteration fused kernel == composed path (same key/samples)."""
-    from graph_embed_tpu.graph.synth import mesh3d
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-
-    for extra in (0.0, 0.3):  # pure-DIA and hybrid (residual kernel) paths
-        g = mesh3d(6, extra_frac=extra, seed=9)
-        params = ForceAtlasParams(repulsion="sampled",
-                                  num_negative_samples=16)
-        tfa = TL.prepare_tiled(g, 3, params, interpret=True,
-                               dia_min_count=32)
-        assert tfa.dia_offsets
-        key = jax.random.PRNGKey(11)
-        coords = jnp.asarray(
-            rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32))
-        xT = ES.pad_coords_T(coords, tfa.n_pad)
-        fprevT = jnp.zeros_like(xT)
-        got_x, got_f = TL.fa_step_tiled_T(xT, fprevT, tfa, params, key)
-        want_x, want_f = TL.fa_step_tiled(coords, jnp.zeros_like(coords),
-                                          tfa, params, key)
-        np.testing.assert_allclose(
-            np.asarray(ES.unpad_coords_T(got_f, g.n, 3)),
-            np.asarray(want_f), rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(ES.unpad_coords_T(got_x, g.n, 3)),
-            np.asarray(want_x), rtol=1e-5, atol=1e-5)
-        # loop invariants: padded columns / rows dim.. stay zero
-        assert not np.asarray(got_x[3:, :]).any()
-        assert not np.asarray(got_x[:, g.n:]).any()
-
-
-def test_fused_step_far_offsets_match(rng, monkeypatch):
-    """DIA offsets beyond one block of halo are pre-applied into y_res;
-    the split result must match the all-near kernel (same key/samples)."""
-    from graph_embed_tpu.graph.synth import mesh3d
-    from graph_embed_tpu.ops.pallas import edge_spmm as ES
-    from graph_embed_tpu.ops.pallas import fused_step as FS
-
-    g = mesh3d(12, seed=2)  # offsets +-1, +-12, +-144; pure DIA (no tiles)
-    params = ForceAtlasParams(repulsion="sampled", num_negative_samples=16)
-    tfa = TL.prepare_tiled(g, 3, params, interpret=True, dia_min_count=32)
-    assert tfa.tiles is None and max(abs(o) for o in tfa.dia_offsets) == 144
-    key = jax.random.PRNGKey(4)
-    coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, 3)).astype(np.float32))
-    xT = ES.pad_coords_T(coords, tfa.n_pad)
-    fprevT = jnp.zeros_like(xT)
-    want_x, want_f = TL.fa_step_tiled_T(xT, fprevT, tfa, params, key)
-    assert FS.split_offsets(tfa.dia_offsets,
-                            FS.fused_block_for(tfa.n_pad))[1] == ()
-
-    monkeypatch.setattr(FS, "FUSED_BLOCK", 128)  # forces +-144 far
-    near, far = FS.split_offsets(tfa.dia_offsets, 128)
-    assert len(far) == 2 and len(near) == len(tfa.dia_offsets) - 2
-    got_x, got_f = TL.fa_step_tiled_T(xT, fprevT, tfa, params, key)
-    np.testing.assert_allclose(np.asarray(got_f), np.asarray(want_f),
-                               rtol=1e-5, atol=1e-5)
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("repulsion", ["exact", "gram", "sampled"])
+def test_tiled_step_matches_flat(rng, repulsion, weighted, dim):
+    """Every repulsion option through the transposed step equals flat.fa_step
+    (same key => same negative samples)."""
+    g = _graph32(rng, 260, weighted=weighted)
+    params = ForceAtlasParams(repulsion=repulsion, num_negative_samples=32)
+    tfa = TL.prepare_tiled(g, dim, params)
+    key = jax.random.PRNGKey(5)
+    coords = jnp.asarray(rng.uniform(-1, 1, size=(g.n, dim)).astype(np.float32))
+    fprev = jnp.asarray(rng.uniform(-1, 1, size=(g.n, dim)).astype(np.float32))
+    deg = g.degrees(True).astype(jnp.float32)
+    got_x, got_f = TL.fa_step_tiled(coords, fprev, tfa, params, key)
+    want_x, want_f = fa_step(coords, fprev, g, deg, params, key)
+    scale = np.abs(np.asarray(want_f)).max()
+    np.testing.assert_allclose(np.asarray(got_f) / scale,
+                               np.asarray(want_f) / scale, atol=1e-5)
     np.testing.assert_allclose(np.asarray(got_x), np.asarray(want_x),
-                               rtol=1e-5, atol=1e-5)
-
-    # all offsets far (block 128 < every stride): y_res carries the whole
-    # attraction, the kernel runs with no DIA rows and no halo views
-    g2 = mesh3d(8, seed=3)  # n = 512 -> strides 1, 8, 64 vs block 512
-    tfa2 = TL.prepare_tiled(g2, 3, params, interpret=True, dia_min_count=8)
-    assert tfa2.tiles is None
-    xT2 = ES.pad_coords_T(
-        jnp.asarray(rng.uniform(-1, 1, size=(g2.n, 3)).astype(np.float32)),
-        tfa2.n_pad)
-    base_x, base_f = TL.fa_step_tiled_T(xT2, jnp.zeros_like(xT2), tfa2,
-                                        params, key)
-    deg_p1 = jnp.zeros(tfa2.n_pad, jnp.float32).at[:g2.n].set(
-        g2.degrees(True).astype(jnp.float32) + 1.0)
-    from graph_embed_tpu.ops import dia as DIA
-
-    y_all = DIA.dia_spmv(xT2, tfa2.dia_w, tfa2.dia_offsets)
-    alt_x, alt_f = FS.fa_step_fused(
-        xT2, jnp.zeros_like(xT2), None, (), tfa2.deg_w_att, deg_p1, key,
-        n=g2.n, num_samples=16, dim=3, params=params, y_res=y_all,
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(alt_f), np.asarray(base_f),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(alt_x), np.asarray(base_x),
-                               rtol=1e-5, atol=1e-5)
+                               rtol=1e-4, atol=1e-4)
